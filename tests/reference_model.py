@@ -1,7 +1,7 @@
 """Clean-room numpy model of the reference MIH algorithm.
 
 A direct executable specification of the C++ search semantics
-(``src/search_worker.cc``) used as the parity oracle for the TPU engine:
+(``src/search_worker.cc``) used as the parity oracle for the device engine:
 per-radius lockstep over m tables, candidates gathered in (table, mask,
 bucket-position) order, master-side dedup-by-id, bounded max-heap with
 strict-improvement eviction, and the exact/approximate stop rules.

@@ -92,7 +92,7 @@ def _check_vs_oracle(packed, queries, cfg, scfg, **build_kw):
     index = build_index(jnp.asarray(packed), cfg, **build_kw)
     assert isinstance(index.tables[0].directory, dir_lib.RangeDirectory)
     res = mih_search(index, queries, scfg)
-    ld, _ = linear_search(queries, packed, scfg.knn)
+    ld, _ = linear_search(queries, packed, scfg.knn, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1), np.sort(np.asarray(ld), -1))
     return res
 
@@ -183,6 +183,6 @@ def test_range_engine_compact_mode():
         assert idx.tables[0].entry_rows is None
         assert idx.tables[0].entry_idrows is not None
         res = mih_search(idx, queries, scfg)
-        ld, _ = linear_search(queries, packed, scfg.knn)
+        ld, _ = linear_search(queries, packed, scfg.knn, method="popcount")
         assert np.array_equal(np.sort(res.dists, -1),
                               np.sort(np.asarray(ld), -1))

@@ -43,7 +43,7 @@ def test_fused_stage_overflow_falls_back():
     q = packed[:128]
     res = mih_search(idx, q, SearchConfig(fused=True, knn=20,
                                           candidate_cap=2048))
-    ld, _ = linear_search(q, packed, 20)
+    ld, _ = linear_search(q, packed, 20, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1), np.sort(np.asarray(ld), -1))
 
 

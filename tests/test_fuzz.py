@@ -60,7 +60,7 @@ def test_fuzz_exactness_vs_oracle(seed):
                 raw[i, b // 8] ^= 1 << (b % 8)
         q = codes.pack_bytes(raw)
     res = mih_search(idx, q, scfg)
-    ld, _ = linear_search(q, packed, scfg.knn)
+    ld, _ = linear_search(q, packed, scfg.knn, method="popcount")
     want = np.sort(np.asarray(ld), -1)
     got = np.sort(np.asarray(res.dists), -1)
     ctx = (seed, kind, n_tables, scfg.knn, scfg.candidate_cap,

@@ -88,7 +88,7 @@ def test_rpc_service_roundtrip():
 
         res = cli.search_image_by_id(5, 3)
         assert res[0][0] == 5 and res[0][1] == 0
-        ld, li = linear_search(packed[5:6], packed, 3)
+        ld, li = linear_search(packed[5:6], packed, 3, method="popcount")
         assert sorted(d for _, d in res) == np.asarray(ld)[0].tolist()
 
         res2 = cli.search_by_code(raw[7].tobytes(), 3)
@@ -252,8 +252,8 @@ def test_service_soak_throughput_scales_with_depth():
     QPS with 16 in-flight clients must beat sequential single-client QPS,
     and per-request p50 must stay bounded (no 50 ms poll stalls — VERDICT
     r2 weak #5). The device layer is mocked with a constant 20 ms
-    per-batch latency — the TPU serving reality (batch size is ~free,
-    launches are not), and the thing the micro-batching + depth-2 leader
+    per-batch latency — the accelerator serving reality (batch size is
+    ~free, launches are not), and the thing the micro-batching + depth-2 leader
     pipeline exist to amortize; with the real CPU backend on this 1-core
     CI box compute is serialized and the scaling law is the rig's, not
     the server's."""

@@ -36,17 +36,17 @@ def test_linear_k_larger_than_n():
     assert d[1, 0] == 0 and i[1, 0] == 1
 
 
-def test_scan_blockmin_matches_oracle():
-    """Block-min pre-selection scan (the TPU-native selection) is exact,
+@pytest.mark.parametrize("seed,n,q,k", [(0, 5000, 37, 10), (1, 300, 8, 100),
+                                        (2, 7000, 16, 3), (3, 1100, 4, 600)])
+def test_scan_blockmin_matches_oracle(seed, n, q, k):
+    """Block-min pre-selection scan (the production scan) is exact,
     including (dist, id) tie order, across k regimes and block boundaries."""
     import jax.numpy as jnp
     from verticut_tpu.ops.hamming import scan_blockmin, scan_popcount
-    for seed, n, q, k in [(0, 5000, 37, 10), (1, 300, 8, 100),
-                          (2, 7000, 16, 3), (3, 1100, 4, 600)]:
-        db = codes.clustered_codes(seed, n, 128, n_clusters=max(4, n // 100),
-                                   flip_p=0.03)
-        qs = jnp.asarray(db[:q])
-        d1, i1 = scan_blockmin(qs, jnp.asarray(db), k, chunk=4096, block=512)
-        d2, i2 = scan_popcount(qs, jnp.asarray(db), k, chunk=4096)
-        assert np.array_equal(np.asarray(d1), np.asarray(d2)), seed
-        assert np.array_equal(np.asarray(i1), np.asarray(i2)), seed
+    db = codes.clustered_codes(seed, n, 128, n_clusters=max(4, n // 100),
+                               flip_p=0.03)
+    qs = jnp.asarray(db[:q])
+    d1, i1 = scan_blockmin(qs, jnp.asarray(db), k, block=512)
+    d2, i2 = scan_popcount(qs, jnp.asarray(db), k, chunk=4096)
+    assert np.array_equal(np.asarray(d1), np.asarray(d2))
+    assert np.array_equal(np.asarray(i1), np.asarray(i2))

@@ -68,7 +68,7 @@ def test_exact_mih_matches_brute_force(n_tables, clustered):
     # radius 2 (C(32,3)*4 > 4*500); s_bits=8 enumerates fully. Both exact.
     scfg = SearchConfig(fused=False, knn=k, max_enum_radius=cfg.s_bits, candidate_cap=512)
     res = mih_search(idx, q, scfg)
-    ld, li = linear_search(q, packed, k)
+    ld, li = linear_search(q, packed, k, method="popcount")
     ld = np.asarray(ld)
     # distance multisets must match exactly (ties at the kth boundary can
     # legally differ in id)
@@ -97,7 +97,7 @@ def test_overflow_retry_preserves_exactness():
     # tiny cap forces overflow + retry
     res = mih_search(idx, packed[:8],
                      SearchConfig(fused=False, knn=k, candidate_cap=16, max_enum_radius=3))
-    ld, _ = linear_search(packed[:8], packed, k)
+    ld, _ = linear_search(packed[:8], packed, k, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1), np.sort(np.asarray(ld), -1))
 
 
@@ -138,7 +138,7 @@ def test_compact_index_no_inline_codes():
     res = mih_search(idx, packed[:5],
                      SearchConfig(fused=False, knn=5, max_enum_radius=3, candidate_cap=1024,
                                   fallback_ratio=1e9))
-    ld, _ = linear_search(packed[:5], packed, 5)
+    ld, _ = linear_search(packed[:5], packed, 5, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1), np.sort(np.asarray(ld), -1))
 
 
@@ -197,7 +197,7 @@ def test_terminal_overflow_never_silently_inexact(fused):
     idx = build_index(db, cfg, directory="range")
     res = mih_search(idx, q, SearchConfig(fused=fused, knn=5,
                                           candidate_cap=4096))
-    ld, _ = linear_search(q, db, 5)
+    ld, _ = linear_search(q, db, 5, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1),
                           np.sort(np.asarray(ld), -1))
     assert res.dists.min() == 4, "closer neighbor lost to budget clipping"

@@ -74,9 +74,31 @@ def test_end_to_end_encode_index_search(tmp_path):
     idx = build_index(loaded, MIHConfig())
     res = mih_search(idx, loaded[:32],
                      SearchConfig(fused=False, knn=10, candidate_cap=2048))
-    ld, li = linear_search(loaded[:32], loaded, 10)
+    ld, li = linear_search(loaded[:32], loaded, 10, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1), np.sort(np.asarray(ld), -1))
     # retrieved neighbors are overwhelmingly same-cluster
     neigh_clusters = assign[np.clip(res.ids, 0, None)]
     frac_same = (neigh_clusters == assign[:32, None]).mean()
     assert frac_same > 0.9, frac_same
+
+
+def test_encoders_match_float64_where_projection_is_clear():
+    """Codes equal a float64 numpy encoding at every bit whose projection
+    is clear of zero (|projection| > 1e-3): the float32 products run at
+    full precision, so no sign flips from a reduced-precision matmul."""
+    x, _ = _features(500, seed=3)
+    lsh = RandomProjectionLSH.create(256, 128, seed=2)
+    itq = ITQEncoder.fit(jnp.asarray(x), bits=128, n_iters=5)
+    x64 = x.astype(np.float64)
+    projections = [
+        (lsh, x64 @ np.asarray(lsh.projection, np.float64)),
+        (itq, (x64 - np.asarray(itq.mean, np.float64))
+         @ np.asarray(itq.w, np.float64) @ np.asarray(itq.r, np.float64)),
+    ]
+    for enc, proj in projections:
+        got = np.asarray(enc.encode(jnp.asarray(x)))
+        bits = np.unpackbits(codes.unpack_to_bytes(got), axis=1,
+                             bitorder="little").astype(bool)
+        clear = np.abs(proj) > 1e-3
+        assert clear.mean() > 0.99
+        assert np.array_equal(bits[clear], (proj >= 0)[clear])

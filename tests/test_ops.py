@@ -348,7 +348,8 @@ def test_chunkmin_pos_huge_ids():
 def test_select_desc_matches_sort():
     # the one wide-selection primitive (narrow native top_k compositions
     # only — the handwritten sorting networks it replaced returned wrong
-    # results at unpredictable widths on the TPU backend; see CLAUDE.md)
+    # results at unpredictable widths on an accelerator backend; see
+    # CLAUDE.md)
     rng = np.random.default_rng(31)
     for w, m in [(40, 7), (1536, 200), (1537, 200), (16000, 500),
                  (5000, 2000), (131072, 100), (300, 512)]:
@@ -373,8 +374,9 @@ def test_strip_merge_wide_pool_shapes():
 def test_chunk_topk_affine_under_scan_unique_ids():
     # regression: chunk_topk_affine runs inside every scan engine's
     # lax.scan/fori body — its wide tail once used a sorting network that
-    # returned duplicated ids on TPU (exact on CPU, so this guards the
-    # semantics and the real-chip verify drive guards the lowering)
+    # returned duplicated ids on an accelerator (exact on CPU, so this
+    # guards the semantics and the on-card oracle drive guards the
+    # lowering)
     import jax
 
     rng = np.random.default_rng(12)

@@ -1,5 +1,5 @@
-"""r5 additions: scan-dominance routing, overflow-to-scan ladder merge,
-row-gather rescore layout, and the approx->exact crossover."""
+"""Scan-dominance routing, the overflow-to-scan ladder merge, and the
+approx->exact crossover."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -49,33 +49,6 @@ def test_overflow_to_scan_exact():
     # the default (two-ladder) policy must agree
     res2 = mih_search(idx, q, SearchConfig(knn=k, candidate_cap=256))
     assert np.array_equal(np.sort(np.asarray(res2.dists), -1), ed)
-
-
-def test_rescore_rows_layout_roundtrip():
-    """codes.rescore_rows_layout row b lane j*128+r == word j of code
-    b*128+r, and scan_blockmin_t(db_rows=...) equals the no-rows path."""
-    rng = np.random.default_rng(4)
-    n, k = 70_000, 7
-    raw = rng.integers(0, 256, (n, 16), dtype=np.uint8)
-    db = jnp.asarray(codes.pack_bytes(raw))
-    db_t = codes.transpose_scan_layout(db)
-    rows = codes.rescore_rows_layout(db_t, 4)
-    npad = db_t.shape[1]
-    assert rows.shape == (npad // 128, 512)
-    rows_h = np.asarray(rows)
-    db_h = np.asarray(db)
-    for b, r in ((0, 0), (3, 17), (n // 128 - 1, 127)):
-        for j in range(4):
-            assert rows_h[b, j * 128 + r] == db_h[b * 128 + r, j]
-
-    from verticut_tpu.ops import hamming
-    q = db[:16]
-    d0, i0 = hamming.scan_blockmin_t(q, db, db_t, k, block=128,
-                                     interpret=True)
-    d1, i1 = hamming.scan_blockmin_t(q, db, db_t, k, block=128,
-                                     interpret=True, db_rows=rows)
-    assert np.array_equal(np.asarray(d0), np.asarray(d1))
-    assert np.array_equal(np.asarray(i0), np.asarray(i1))
 
 
 def test_approx_exact_crossover():

@@ -46,7 +46,7 @@ def test_sharded_matches_oracle(mesh_shape):
     q = np.asarray(packed[:16])
     scfg = SearchConfig(knn=k, candidate_cap=512)
     res = sharded_mih_search(idx, q, scfg)
-    ld, li = linear_search(q, packed, k)
+    ld, li = linear_search(q, packed, k, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1), np.sort(np.asarray(ld), -1))
 
 
@@ -72,7 +72,7 @@ def test_sharded_full_enum_no_fallback():
     scfg = SearchConfig(knn=5, max_enum_radius=8, candidate_cap=1024,
                         fallback_ratio=1e9)
     res = sharded_mih_search(idx, np.asarray(packed[:8]), scfg)
-    ld, _ = linear_search(packed[:8], packed, 5)
+    ld, _ = linear_search(packed[:8], packed, 5, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1), np.sort(np.asarray(ld), -1))
 
 
@@ -84,7 +84,7 @@ def test_sharded_linear_scan():
     q = jax.device_put(np.asarray(packed[:8]))
     d, i = sharded_linear_search(mesh, idx.codes, jnp.asarray(q), 7,
                                  n_total=idx.n)
-    ed, ei = linear_search(packed[:8], packed, 7)
+    ed, ei = linear_search(packed[:8], packed, 7, method="popcount")
     assert np.array_equal(np.asarray(d), np.asarray(ed))
     assert np.array_equal(np.asarray(i), np.asarray(ei))
 
@@ -115,7 +115,7 @@ def test_sharded_full_3d_mesh_unbalanced():
     idx = build_sharded_index(packed, cfg, mesh)
     res = sharded_mih_search(idx, np.asarray(packed[:8]),
                              SearchConfig(knn=6, candidate_cap=512))
-    ld, _ = linear_search(packed[:8], packed, 6)
+    ld, _ = linear_search(packed[:8], packed, 6, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1), np.sort(np.asarray(ld), -1))
 
 
@@ -140,7 +140,7 @@ def test_straddling_hot_bucket_across_shards():
     queries = np.concatenate([hot, rest[:15]])  # hot query + normal ones
     scfg = SearchConfig(knn=10, candidate_cap=256)  # tight: force retries
     res = sharded_mih_search(index, queries, scfg)
-    ld, _ = linear_search(queries, packed, 10)
+    ld, _ = linear_search(queries, packed, 10, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1),
                           np.sort(np.asarray(ld), -1))
 
@@ -163,6 +163,6 @@ def test_sharded_scale_1m_rows():
             qraw[i, b // 8] ^= 1 << (b % 8)
     queries = codes.pack_bytes(qraw)
     res = sharded_mih_search(index, queries, SearchConfig(knn=10))
-    ld, _ = linear_search(queries, packed, 10)
+    ld, _ = linear_search(queries, packed, 10, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1),
                           np.sort(np.asarray(ld), -1))

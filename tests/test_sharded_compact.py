@@ -44,7 +44,7 @@ def test_compact_sharded_matches_oracle(mesh_shape, clustered):
     q = np.asarray(db[:nq])
     res = sharded_compact_search(
         idx, q, SearchConfig(knn=5, candidate_cap=1024))
-    ld, _ = linear_search(q, db, 5)
+    ld, _ = linear_search(q, db, 5, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1),
                           np.sort(np.asarray(ld), -1)), mesh_shape
     assert (res.dists[:, 0] == 0).all()      # self-match
@@ -143,7 +143,7 @@ def test_compact_save_load_roundtrip(tmp_path, mesh_shape, reload_q):
     q = np.asarray(db[:nq])
     res = sharded_compact_search(idx2, q,
                                  SearchConfig(knn=5, candidate_cap=1024))
-    ld, _ = linear_search(q, db, 5)
+    ld, _ = linear_search(q, db, 5, method="popcount")
     assert np.array_equal(np.sort(res.dists, -1),
                           np.sort(np.asarray(ld), -1))
     assert (res.dists[:, 0] == 0).all()
@@ -193,6 +193,6 @@ def test_compact_scale_10m_rows():
     assert st["bytes_per_code"] < 60          # DESIGN §3 compact column
     q = np.asarray(db[:64])
     res = sharded_compact_search(idx, jnp.asarray(q), SearchConfig(knn=10))
-    ld, _ = linear_search(jnp.asarray(q), db, 10)
+    ld, _ = linear_search(jnp.asarray(q), db, 10, method="popcount")
     assert np.array_equal(np.sort(np.asarray(res.dists), -1),
                           np.sort(np.asarray(ld), -1))

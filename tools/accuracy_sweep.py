@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """Run the full reference accuracy protocol (clustered + uniform corpora,
 k sweep per ``src/test_approximate_accuracy.py:12``) and wrap the rows
-into one artifact JSON — the committed ``ACCURACY_r{N}.json`` shape.
+into one artifact JSON. Each sweep runs in a child process, one after the
+other, so only one JAX process holds the card at a time.
 
-Usage: PYTHONPATH=... python tools/accuracy_sweep.py [out.json] [N] [count]
+Usage: python tools/accuracy_sweep.py [out.json] [N] [count]
 """
 
 import json
@@ -11,6 +12,7 @@ import subprocess
 import sys
 
 REPO = __file__.rsplit("/", 2)[0]
+sys.path.insert(0, REPO)
 
 
 def sweep(uniform: bool, n: int, count: int):
@@ -32,11 +34,12 @@ def sweep(uniform: bool, n: int, count: int):
 
 
 def main():
-    out_path = sys.argv[1] if len(sys.argv) > 1 else "ACCURACY_r05.json"
+    out_path = sys.argv[1] if len(sys.argv) > 1 else "accuracy.json"
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 1_000_000
     count = int(sys.argv[3]) if len(sys.argv) > 3 else 256
+    from verticut_tpu.utils.device import card_line
     art = {
-        "round": 5,
+        "card": card_line(),
         "protocol": "src/accuracy_test.cc:72-135 metrics over "
                     "src/test_approximate_accuracy.py:12 k-sweep",
         "corpus_n": n,
@@ -44,12 +47,11 @@ def main():
         "bits": 128,
         "n_tables": 4,
         "note": "queries drawn from the corpus; approx = k*20 pool "
-                "early-stop (search_worker.h:14) with the r5 "
+                "early-stop (search_worker.h:14) with the "
                 "approx_exact_crossover: pools wider than 1024 run the "
-                "exact engine (never-slower guarantee, VERDICT r4 #8); "
-                "times are warm batched seconds for all queries on one "
-                "TPU v5e; accuracy = fraction of approx results within "
-                "the exact max distance",
+                "exact engine; times are warm batched seconds for all "
+                "queries on the card named above; accuracy = fraction "
+                "of approx results within the exact max distance",
         "clustered": sweep(False, n, count),
         "uniform": sweep(True, n, count),
     }

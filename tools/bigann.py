@@ -7,7 +7,7 @@ Closes the loop the reference leaves external (it consumes a pre-computed
 protocol is ``src/accuracy_test.cc:72-135``): reads the standard
 ``.bvecs``/``.fvecs`` base + query files and ``.ivecs`` ground truth
 (utils/io.py), trains an ITQ encoder (models/lsh.py) on a base sample,
-encodes base + queries on the MXU, builds the index, searches, and reports
+encodes base + queries on the device, builds the index, searches, and reports
 recall@k of the exact ground-truth neighbors within the Hamming top-R
 shortlist (the standard binary-hashing evaluation).
 

@@ -1,15 +1,16 @@
 #!/usr/bin/env python
-"""Transport microbenchmark — the ``Pilaf/ib-test.cc`` analog for TPU.
+"""Transport microbenchmark — the ``Pilaf/ib-test.cc`` analog.
 
 The reference measures RDMA READ / 1-way verb / 2-way verb latency and
-throughput over message sizes 2^0..2^17 (``ib-test.cc:43-44``). The TPU
-transports are (a) HBM random gathers (the RDMA READ analog: how fast the
-engine can fetch buckets) and (b) ICI/host collectives over a mesh
-(all_gather = gather_vectors transport, psum = the reduce path). This tool
-sweeps the same size range and reports per-op latency and bandwidth.
+throughput over message sizes 2^0..2^17 (``ib-test.cc:43-44``). Here the
+transports are (a) device-memory random gathers (the RDMA READ analog: how
+fast the engine can fetch buckets) and (b) collectives over a mesh
+(all_gather = gather_vectors transport, psum = the reduce path; NVLink
+between the cards of one host). This tool sweeps the same size range and
+reports per-op latency and bandwidth.
 
-Run on one real chip (gather + copy) or on a virtual CPU mesh for the
-collective path shape check:
+Run on one card (gather + copy), on four cards for the collectives, or on
+a virtual CPU mesh for the collective path shape check:
     python tools/collective_bench.py --mesh 4x2x1 --cpu
 """
 

@@ -1,18 +1,16 @@
 """On-chip oracle drive — the recording gate for selection/merge changes.
 
-This TPU backend has miscompiled selection code at unpredictable
-(width, batch, program) combinations that CPU tests and isolated
-micro-probes cannot reproduce (the r3 sorting-network incident, CLAUDE.md
-"performance rules"). This script is therefore a *recurring artifact*:
-run it on the real chip after ANY change to a selection or merge path
-(ops/topk.py, ops/hamming.py, the fused pipeline staging) and commit the
-JSON it prints as ``ORACLE_r{N}.json``.
+An accelerator backend can miscompile selection code at (width, batch,
+program) combinations that CPU tests and isolated micro-probes cannot
+reproduce (CLAUDE.md "Invariants"). Run this on the card after ANY change
+to a selection or merge path (ops/topk.py, ops/hamming.py, the fused
+pipeline staging).
 
 Coverage: clustered + uniform 1M corpora, k ∈ {10, 100, 500, 1000},
 the production fused engine vs an INDEPENDENT brute-force oracle
-(``linear_search(method="popcount")`` — VPU popcount + chunk merges,
+(``linear_search(method="popcount")`` — XOR + popcount + chunk merges,
 sharing no code with the blockmin/select_desc machinery the engine's scan
-tier uses, so a shared miscompile cannot fake a pass; ADVICE r3).
+tier uses, so a shared miscompile cannot fake a pass).
 Pass criterion per cell: the k-NN distance multisets are equal for every
 query, and every returned id's recomputed Hamming distance equals the
 distance the engine claimed for it.
@@ -25,7 +23,7 @@ distances) is compiler-induced, not algorithmic.
 
 Usage::
 
-    python tools/oracle_drive.py               # full grid, ~5-10 min
+    python tools/oracle_drive.py               # full grid
     VERTICUT_ORACLE_N=100000 python tools/oracle_drive.py   # quick
 
 Prints one JSON object; exit code 0 iff every cell passed.

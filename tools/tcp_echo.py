@@ -7,7 +7,7 @@ Here the analogous comparison is TCP loopback/DCN vs the in-process KV
 path: this tool measures echo RTT latency and throughput over the same
 message-size grid as the ib-test protocol (2^0..2^17 bytes,
 ``Pilaf/ib-test.cc:43``), giving the control row for
-``tools/collective_bench.py`` (ICI/HBM analog) and
+``tools/collective_bench.py`` (device-memory/collective analog) and
 ``tools/kv_loadtest.py`` (KV service).
 
 Usage:

@@ -1,13 +1,13 @@
 """Largest-feasible compact-sharded build + search on the 8-device
-VIRTUAL CPU mesh — the scale half of the 1B-readiness evidence
-(tools/aot_1b_proof.py is the compile/memory half).
+VIRTUAL CPU mesh, on the CPU by design: the distributed pipeline's scale
+behaviour without a card.
 
 Runs the production distributed pipeline end to end at N far beyond the
 reference's 120M single-run cap per rank-count (src/build_hash_tables.cc:66):
 device-born corpus -> build_sharded_compact on a (4, 2, 1) mesh ->
 sharded_compact_search -> distance-multiset oracle vs the independent
 sharded linear scan -> save/load round-trip -> search-after-load check.
-Emits VIRTUAL_SCALE_r04.json.
+Writes one JSON artifact.
 
 Run (CPU, any rig): python tools/virtual_scale_run.py [N] [out.json]
 """
@@ -36,7 +36,7 @@ def main():
         sharded_compact_search)
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 64_000_000
-    out_path = sys.argv[2] if len(sys.argv) > 2 else "VIRTUAL_SCALE_r04.json"
+    out_path = sys.argv[2] if len(sys.argv) > 2 else "virtual_scale.json"
     nq, k = 512, 10
     n_oracle = 32
     cfg = MIHConfig(bits=128, n_tables=4)

@@ -1,6 +1,6 @@
 """Configuration for the MIH engine.
 
-TPU-native analog of the reference's three config mechanisms
+The analog of the reference's three config mechanisms
 (``src/image_search_constants.h:9-18`` compile-time defaults,
 ``src/args_config.cc:8-17`` getopt flags, ``config/*.cnf`` cluster files):
 one pair of frozen dataclasses usable from Python and from CLI flags.
@@ -87,20 +87,17 @@ class SearchConfig:
     # Approximate mode exists purely to be CHEAPER than exact
     # (src/search_worker.cc:93-157) — but its k*factor pool makes every
     # dedup merge pool-wide, and past ~1024 slots the merges cost more
-    # than exact mode's whole search (ACCURACY_r03: k=500 approx 0.44 s
-    # vs exact 0.19 s). Above this pool width the drivers run the EXACT
-    # engine instead: strictly better answers, never slower — an
+    # than exact mode's whole search. Above this pool width the drivers
+    # run the EXACT engine instead: strictly better answers — an
     # approximation that costs more than exactness is parity in letter,
-    # inversion in spirit (VERDICT r4 weak #7/#8). Set to a huge value to
-    # force literal k*factor pools at any k.
+    # inversion in spirit. Set to a huge value to force literal k*factor
+    # pools at any k.
     approx_exact_crossover: int = 1024
     # Route overflowed-but-finished rows through the scan-tier ladder
     # instead of the separate 2x-cap re-enumeration retry ladder ("one
-    # ladder, not two"). MEASURED SLOWER at the 1M production shapes
-    # (tools/profile_fused_ablate r5: k=10 +1.0 ms, k=100 +4.5 ms per
-    # batch — a few hundred overflow rows re-enumerate cheaper than they
-    # scan), so the default keeps both ladders; the merged path stays
-    # available and tested (exactness is unaffected either way).
+    # ladder, not two"). Off by default: a few hundred overflow rows were
+    # expected to re-enumerate cheaper than they scan; not yet measured on
+    # the GPU (ROADMAP Queue 1). Exactness is unaffected either way.
     overflow_to_scan: bool = False
     candidate_cap: int = 4096
     max_enum_radius: int = 6
@@ -117,20 +114,19 @@ class SearchConfig:
     fused: bool = True
     # Largest per-group mask count admitted into the fused program; later
     # radii (C(32,4)=36k masks legacy, C(17,3)=680 range-engine) blow
-    # HBM for their probe intermediates and cover a vanishing fraction of
-    # queries — the stragglers take the exact brute-force scan instead
-    # (in-device scan stage when the fused driver runs, host fallback
-    # otherwise). Admitting r3 (680 masks) was MEASURED SLOWER end to end
-    # at 1M (BENCH r3: k10 150k -> 89k, k100 19.4k -> 5k): the deep-stage
-    # fixed cost dwarfs its 3-per-8192-query coverage, and k=100's
-    # mid-depth queries resolve cheaper in the batched scan tier.
+    # device memory for their probe intermediates and cover a vanishing
+    # fraction of queries — the stragglers take the exact brute-force scan
+    # instead (in-device scan stage when the fused driver runs, host
+    # fallback otherwise). Any value is exact; this one awaits re-tuning
+    # on the GPU (ROADMAP Queue 1).
     fused_max_masks: int = 512
     # Switch to the brute-force scan once enumerating the next radius costs
     # more probes than scanning the whole DB costs distance evaluations
     # (n_masks(s,r)*m > fallback_ratio*N). The reference has no such
     # crossover because its per-bucket cost is an RDMA round-trip, not
-    # compute; on TPU a directory probe (2 random 16 B gathers) costs
-    # several times a scanned code (16 B sequential + MXU), hence < 1.
+    # compute; here a directory probe (2 random 16 B gathers) costs
+    # several times a scanned code (16 B sequential + a GEMM row), hence
+    # < 1. Any value is exact; re-tune on the GPU (ROADMAP Queue 1).
     fallback_ratio: float = 0.5
 
     @property

@@ -1,10 +1,10 @@
 """Bucket-occupancy bitmap — 1 bit per possible substring value per table.
 
-TPU-native equivalent of the reference's ``ImageBitmap`` + shm daemon
+The equivalent of the reference's ``ImageBitmap`` + shm daemon
 (``src/bitmap.{h,cc}``, ``src/bitmap_deamon.cc``, ``src/generate_bitmap.cc``):
-the 2 GB POSIX-shm segment (4 tables × 2^32 bits) becomes a plain uint32 HBM
-array per table shard; the daemon/mmap machinery disappears because HBM
-residency *is* the sharing mechanism on TPU. Bit layout matches the
+the 2 GB POSIX-shm segment (4 tables × 2^32 bits) becomes a plain uint32
+device array per table shard; the daemon/mmap machinery disappears because
+device residency *is* the sharing mechanism. Bit layout matches the
 reference exactly: value ``v`` → word ``v >> 5``, bit ``v & 31``
 (``src/bitmap.cc:22-26``).
 """

@@ -63,8 +63,7 @@ def build_index_native(codes_arr: np.ndarray, cfg: MIHConfig = MIHConfig(),
                        dense_threshold: int = 24, store_codes: bool = True,
                        with_bitmap: bool = False, keep_codes: bool = True,
                        directory: str = "auto",
-                       keep_entry_ids: bool = True,
-                       scan_copy: "bool | None" = None) -> MIHIndex:
+                       keep_entry_ids: bool = True) -> MIHIndex:
     codes_arr = np.ascontiguousarray(codes_arr, np.uint32)
     n = codes_arr.shape[0]
     if codes_arr.shape[-1] != cfg.n_words:
@@ -106,10 +105,5 @@ def build_index_native(codes_arr: np.ndarray, cfg: MIHConfig = MIHConfig(),
             entry_ids=jnp.asarray(ids) if keep_entry_ids else None,
             entry_codes=entry_codes, directory=d, bitmap=bmp,
             entry_rows=entry_rows, entry_idrows=entry_idrows))
-    from verticut_tpu.index.mih import _maybe_rescore_rows, _maybe_scan_copy
     codes_dev = jnp.asarray(codes_arr) if keep_codes else None
-    codes_t = (_maybe_scan_copy(codes_dev, keep_codes, scan_copy)
-               if codes_dev is not None else None)
-    return MIHIndex(cfg=cfg, tables=tables, n=n, codes=codes_dev,
-                    codes_t=codes_t,
-                    codes_rows=_maybe_rescore_rows(codes_t, cfg.n_words, n))
+    return MIHIndex(cfg=cfg, tables=tables, n=n, codes=codes_dev)

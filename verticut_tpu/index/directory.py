@@ -1,7 +1,7 @@
 """Bucket directories: substring value → (start, count) in the CSR entry
 arrays.
 
-This is the TPU-native replacement for the Pilaf DHT bucket lookup
+This is the device-side replacement for the Pilaf DHT bucket lookup
 (``Pilaf/dht.h:604-676``): instead of cuckoo-probing remote memory via RDMA
 READ, a directory is a device array co-resident with the entries it
 describes, and lookups are vectorized gathers/binary searches over the whole
@@ -63,12 +63,12 @@ def prefix_range_search(keys: jax.Array, vals: jax.Array, lo0: jax.Array,
     candidate ranges ``[lo0, hi0)`` of the sorted ``keys`` column.
 
     Hand-rolled bisection (``iters`` rounds of gathers) — a vmapped
-    ``jnp.searchsorted`` lowers to a per-row loop that is ~10x slower on TPU.
+    ``jnp.searchsorted`` can lower to a per-row loop.
 
     With ``run_end`` (precomputed ``run_end[i] = one past the last key equal
     to keys[i]``) the right boundary costs 2 extra gathers instead of a
-    second full bisection — random HBM gathers are the entire cost of a
-    probe, so this nearly halves directory lookup time.
+    second full bisection — random gathers are the entire cost of a
+    probe, so this nearly halves the gathers of a lookup.
     """
     n = keys.shape[0]
 
@@ -96,10 +96,10 @@ def prefix_range_search(keys: jax.Array, vals: jax.Array, lo0: jax.Array,
 class PrefixDirectory:
     """Two-level directory: dense offsets over the top ``pbits`` of the
     substring value narrow the binary search to a short range of the sorted
-    key column. The TPU-native answer to the reference's s=32 problem
+    key column. This repo's answer to the reference's s=32 problem
     (a dense 2^32 directory is infeasible; Pilaf hashes instead —
-    ``Pilaf/dht.h:618-630``): 2^pbits+1 ints of HBM buy O(log(N/2^pbits))
-    probe cost.
+    ``Pilaf/dht.h:618-630``): 2^pbits+1 ints of device memory buy
+    O(log(N/2^pbits)) probe cost.
     """
 
     def __init__(self, prefix_offsets: jax.Array, keys: jax.Array,
@@ -144,9 +144,9 @@ def _mix(v: jax.Array, ca: int, cb: int) -> jax.Array:
 class HashDirectory(NamedTuple):
     """2-way cuckoo directory: 16-byte rows [key, start, count, 0].
 
-    One probe = two *independent* row gathers + VPU multiply-shift hashes —
-    the latency-optimal TPU layout (a bisection chain is ~10 dependent
-    gathers). This is the HBM-resident descendant of the Pilaf cuckoo DHT's
+    One probe = two *independent* row gathers + vectorized multiply-shift
+    hashes — latency-optimal (a bisection chain is ~10 dependent
+    gathers). This is the device-resident descendant of the Pilaf cuckoo DHT's
     read path (Pilaf/dht.h:626-649: compute slots from the hash, fetch row,
     compare key), with the CRC/retry machinery gone because the index is
     build-then-freeze. Host-side cuckoo build in native/src/hashdir.cc.
@@ -181,7 +181,7 @@ class RangeDirectory:
     ``pbits`` of the substring value, describing contiguous runs of the
     substring-sorted entry rows.
 
-    This is the TPU-native replacement for per-bucket probing in the hot
+    This is the device-side replacement for per-bucket probing in the hot
     loop: one 8 B gather per *prefix* returns the row range holding every
     key that shares the prefix, so a single probe covers all flip masks in
     the low ``s_bits - pbits`` bits at once, and radius-r enumeration
@@ -237,8 +237,8 @@ def pick_range_pbits(n: int, s_bits: int, blk: int = 16) -> int:
     one fetch block at any supported block width), clamped to keep ``se``
     ≤ 128 MB. The target is capped independent of wide blocks: candidate
     caps and merge widths grow with expected rows faster than the probe
-    count shrinks (measured at 1M: pbits 16 vs 17 raised mean scored
-    candidates 1283 -> 1893 for the same throughput at best)."""
+    count shrinks (at 1M, pbits 16 vs 17 raised mean scored candidates
+    1283 -> 1893, a count that does not depend on the device)."""
     target = max(1, min(blk, 16) // 2)
     p = max(1, (max(n, 2) - 1).bit_length() - (target - 1).bit_length())
     return max(4, min(24, s_bits, p))

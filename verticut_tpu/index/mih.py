@@ -1,4 +1,4 @@
-"""The multi-index-hashing index: per-table CSR arrays in HBM.
+"""The multi-index-hashing index: per-table CSR arrays in device memory.
 
 Replaces the reference's entire storage stack — the Pilaf cuckoo DHT with
 protobuf ``Image_List`` bucket values (``Pilaf/dht.h``, ``src/pilaf_proxy.h``)
@@ -40,19 +40,18 @@ class MIHTable(NamedTuple):
     directory: dir_lib.Directory
     bitmap: Optional[Bitmap]
     # Blocked (id, code) entry rows for the block-fetch engine:
-    # uint32[NB, 128], one row = one BLK-entry block stored word-major
-    # (lane w*BLK + r = word w of block entry r; word 0 = id, words
-    # 1..W = code, rest zero pad; pad entries carry id 0xFFFFFFFF).
-    # BLK = 128 // row_width, so one gathered block is exactly one
-    # 128-lane vector register row: the id slice and each code word are
-    # static lane slices and the whole score pipeline is lane-parallel
+    # uint32[NB, BLK*row_width], one row = one BLK-entry block stored
+    # word-major (column w*BLK + r = word w of block entry r; word 0 = id,
+    # words 1..W = code; pad entries carry id 0xFFFFFFFF).
+    # BLK = 128 // row_width, so one gathered block is one row of at most
+    # 512 B: the id slice and each code word are static column slices
     # (ops/chunks.fetch_score_blocks).
     entry_rows: Optional[jax.Array] = None
     # Compact-mode variant: blocked id-only rows uint32[NBc, 32] (32 ids
     # per 128 B gather row; pad ids 0xFFFFFFFF). Candidate codes are then
     # gathered per-id from the shared id-ordered code array — 4 B/entry
-    # per table instead of 32 B, at ~30 ns per candidate code gather
-    # (the 100M-1B memory/speed tradeoff, DESIGN.md §3).
+    # per table instead of 20 B, at the cost of one random 16 B code
+    # gather per candidate (the 100M-1B memory/speed tradeoff, DESIGN.md §3).
     entry_idrows: Optional[jax.Array] = None
 
     def n_entries(self, n_words: Optional[int] = None) -> int:
@@ -99,17 +98,15 @@ def make_entry_idrows(sorted_ids: jax.Array) -> jax.Array:
 
 def _row_width(n_words: int) -> int:
     """Entry-row word count: 1 id word + code words — TIGHT, no pow2
-    padding. The former pow2 pad (8 words at W=4) wasted 37.5% of every
-    row's bytes and HBM; tight 5-word entries pack 25 per 125-lane gather
-    block (500 B, still under the flat ~16 ns/row width ceiling), which is
-    both 1.56x more entries per fetched row and what makes 100M-scale
-    INLINE tables fit one 16 GB chip (~8.2 GB vs 12.8 GB)."""
+    padding (a pow2 pad, 8 words at W=4, would waste 37.5% of every row's
+    bytes and memory); tight 5-word entries pack 25 per 125-word gather
+    block (500 B): ~20.5 B per entry per table at W=4."""
     return 1 + n_words
 
 
 def entry_block_size(n_words: int) -> int:
     """Entries per fetch block: the largest BLK with BLK*row_width <= 128
-    lanes (one gather row <= 512 B)."""
+    words (one gather row <= 512 B)."""
     return 128 // _row_width(n_words)
 
 
@@ -124,11 +121,8 @@ def make_entry_rows(sorted_ids: jax.Array, sorted_codes: jax.Array
     """Blocked word-major (id, code) rows (see MIHTable.entry_rows).
 
     Assembled column-wise — id column, then one column per code word, each
-    a 1-D ``[npad] -> [NB, blk]`` reshape — NOT via a ``[npad, rw]``
-    transpose: 2-D reshapes of big [N, small] arrays were observed to
-    relayout into (8,128)-tiled form (32x the bytes, fatal at 100M;
-    CLAUDE.md layout traps), while 1-D reshapes and lane concatenation
-    lower clean."""
+    a 1-D ``[npad] -> [NB, blk]`` reshape, then a concatenation along
+    the last axis."""
     n, w = sorted_codes.shape
     blk = entry_block_size(w)
     align = entry_row_align(w)
@@ -167,17 +161,6 @@ class MIHIndex:
     tables: List[MIHTable]
     n: int                      # number of indexed codes
     codes: Optional[jax.Array]  # uint32[N, W] original id-ordered codes
-    #: transposed scan copy uint32[8, Npad] (codes.transpose_scan_layout)
-    #: feeding the no-relayout Pallas blockmin kernel; built on TPU only
-    #: (derived — never persisted), None elsewhere
-    codes_t: Optional[jax.Array] = None
-    #: blocked rescore rows uint32[Npad/128, W*128]
-    #: (codes.rescore_rows_layout): the scan's block rescore runs at
-    #: ~20 ns per gathered 128-code row off this layout vs ~1.4 us per
-    #: (block, W) slice off ``codes`` (tools/microbench_r5.py). 16 B/code
-    #: extra HBM at W=4; built with codes_t up to ROWS_MAX_N, derived —
-    #: never persisted.
-    codes_rows: Optional[jax.Array] = None
 
     def table_subs(self, queries: jax.Array) -> jax.Array:
         """Substring values of a query batch for every table: [Q, m]."""
@@ -207,9 +190,7 @@ import functools
 @functools.partial(jax.jit, donate_argnums=(0,))
 def _sort_pairs_jit(subs):
     """Stable (substring, id) sort — its own program so the sort scratch
-    (~2x N) is freed before row assembly allocates (AOT-measured: the
-    fused one-program build peaked 14 GB at 100M; split + chunked
-    assembly peaks ~5 GB)."""
+    (~2x N) is freed before row assembly allocates."""
     n = subs.shape[0]
     ids = jnp.arange(n, dtype=jnp.int32)
     return jax.lax.sort((subs, ids), num_keys=2)
@@ -235,11 +216,8 @@ def _rows_dir_jit(codes_arr, sorted_subs, sorted_ids, *, s_bits: int,
     column is an argument, so table_id never specializes the program).
 
     The blocked rows are assembled in ~5M-entry chunks inside a
-    ``fori_loop`` writing into the output: assembling whole-array
-    word-major columns materializes each [NB, blk] column lane-padded to
-    128 (5 x 2 GB of temps at 100M — AOT-measured 9.9 GB; the
-    reshape+transpose form measured 11.9 GB), while per-chunk assembly
-    bounds the padded temps at the chunk size (0.85 GB)."""
+    ``fori_loop`` writing into the output, so the assembly temporaries
+    are bounded by the chunk size rather than the corpus."""
     n = codes_arr.shape[0]
     w = codes_arr.shape[1]
     shift = s_bits - pbits
@@ -317,8 +295,7 @@ def build_index(codes_arr, cfg: MIHConfig = MIHConfig(),
                 dense_threshold: int = 24, store_codes: bool = True,
                 with_bitmap: bool = False, keep_codes: bool = True,
                 directory: str = "auto",
-                keep_entry_ids: bool = True,
-                scan_copy: Optional[bool] = None) -> MIHIndex:
+                keep_entry_ids: bool = True) -> MIHIndex:
     """Build the full m-table index on device.
 
     ``codes_arr``: ``uint32[N, W]`` packed codes, row i = image id i
@@ -329,9 +306,6 @@ def build_index(codes_arr, cfg: MIHConfig = MIHConfig(),
     duplicated inside the blocked rows) — the memory-tight option for
     100M+ range-engine builds; only the legacy bucket engine and
     integrity tooling need the flat column.
-    ``scan_copy``: also keep the transposed scan copy ``codes_t`` (32
-    B/code, feeds the no-relayout Pallas blockmin scan — the engine for
-    scan-dominated workloads). Default: on TPU whenever codes are kept.
     """
     codes_arr = jnp.asarray(codes_arr, dtype=jnp.uint32)
     if codes_arr.shape[-1] != cfg.n_words:
@@ -342,38 +316,8 @@ def build_index(codes_arr, cfg: MIHConfig = MIHConfig(),
                      with_bitmap, directory, keep_entry_ids)
         for t in range(cfg.n_tables)
     ]
-    codes_t = _maybe_scan_copy(codes_arr, keep_codes, scan_copy)
     return MIHIndex(cfg=cfg, tables=tables, n=codes_arr.shape[0],
-                    codes=codes_arr if keep_codes else None,
-                    codes_t=codes_t,
-                    codes_rows=_maybe_rescore_rows(codes_t, cfg.n_words,
-                                                   codes_arr.shape[0]))
-
-
-def _maybe_scan_copy(codes_arr: jax.Array, keep_codes: bool,
-                     scan_copy: Optional[bool]) -> Optional[jax.Array]:
-    """codes_t policy: explicit flag wins; auto = TPU and codes kept (the
-    scan engines rescore off the row-major array, so both must exist)."""
-    if scan_copy is None:
-        scan_copy = keep_codes and jax.devices()[0].platform == "tpu"
-    if not (scan_copy and keep_codes):
-        return None
-    return codes_lib.transpose_scan_layout(codes_arr)
-
-
-#: largest corpus that also keeps the blocked rescore rows (16 B/code at
-#: W=4 on top of codes 16 + codes_t 32): at 100M the inline index + scan
-#: copies already sit ~13 GB of the 15.75 GB HBM and the scan's fold
-#: temps need the rest, so the 100M cells keep the slice-gather rescore
-#: (rescore there is ~13% of the 1.06 s GEMM floor anyway).
-ROWS_MAX_N = 48_000_000
-
-
-def _maybe_rescore_rows(codes_t: Optional[jax.Array], n_words: int,
-                        n: int) -> Optional[jax.Array]:
-    if codes_t is None or n > ROWS_MAX_N:
-        return None
-    return codes_lib.rescore_rows_layout(codes_t, n_words)
+                    codes=codes_arr if keep_codes else None)
 
 
 # --------------------------------------------------------------------------
@@ -443,9 +387,4 @@ def load_index(path: str) -> MIHIndex:
         tables.append(MIHTable(entry_ids=ei, entry_codes=ec, directory=d,
                                bitmap=bmp, entry_rows=er, entry_idrows=eir))
     codes_arr = jnp.asarray(z["codes"]) if "codes" in z else None
-    codes_t = (_maybe_scan_copy(codes_arr, True, None)
-               if codes_arr is not None else None)
-    return MIHIndex(cfg=cfg, tables=tables, n=int(z["n"]), codes=codes_arr,
-                    codes_t=codes_t,
-                    codes_rows=_maybe_rescore_rows(codes_t, cfg.n_words,
-                                                   int(z["n"])))
+    return MIHIndex(cfg=cfg, tables=tables, n=int(z["n"]), codes=codes_arr)

@@ -2,7 +2,7 @@
 
 The reference runs its store as a separate process (``Pilaf/store-server.cc``)
 and ships pluggable memcached/redis clients (``src/memcached_proxy.h``,
-``src/redis_proxy.h`` over the vendored ``Redis/redisclient.h``). The TPU
+``src/redis_proxy.h`` over the vendored ``Redis/redisclient.h``). The device
 engine never touches a KV store on the query path, but the framework keeps
 the operational seam real:
 
@@ -238,7 +238,7 @@ class _RespHandler(socketserver.StreamRequestHandler):
 class KVServer:
     """Threaded RESP2 front over any KVStore — the standalone store-server
     process. The single writer lock serializes mutations (the native DHT is
-    single-writer by contract); reads share it for simplicity — the TPU
+    single-writer by contract); reads share it for simplicity — the device
     data path never sits behind this server."""
 
     def __init__(self, store: Optional[KVStore] = None,

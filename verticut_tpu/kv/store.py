@@ -2,8 +2,8 @@
 (``src/base_proxy.h:15-29``: get/put/contain/init/close over pluggable
 pilaf/memcached/redis backends).
 
-On TPU the query path never touches a KV store (tables are CSR arrays in
-HBM); this layer exists for the host-side roles the reference's stores
+The query path never touches a KV store (tables are CSR arrays in device
+memory); this layer exists for the host-side roles the reference's stores
 cover: streaming/incremental index construction, the integrity-check
 round-trip, and operational tooling. Backends:
 

@@ -4,8 +4,10 @@ engine indexes.
 The reference consumes a pre-computed ``lsh.code`` file
 (``src/image_search_constants.h:12``: the canonical corpus is LSH codes of
 image features) but ships no encoder; a complete framework closes the loop.
-Both encoders are MXU-shaped: encoding is one ``[B, D] x [D, bits]`` matmul
-+ sign + bit-pack.
+Both encoders are one ``[B, D] x [D, bits]`` matmul + sign + bit-pack.
+Every float32 product runs at ``Precision.HIGHEST``: a reduced-precision
+product (TF32 on a GPU) can flip the sign bit of a projection near zero,
+i.e. change the code.
 
 * :class:`RandomProjectionLSH` — classic signed random projections
   (Charikar SimHash): cos-similarity preserving, no training.
@@ -25,6 +27,8 @@ import jax
 import jax.numpy as jnp
 
 from verticut_tpu import codes as codes_lib
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _pack_bits_device(bits: jax.Array) -> jax.Array:
@@ -54,6 +58,7 @@ class RandomProjectionLSH(NamedTuple):
     def encode(self, features: jax.Array) -> jax.Array:
         """f32[B, D] -> packed uint32[B, bits//32]."""
         proj = jnp.dot(features.astype(jnp.float32), self.projection,
+                       precision=_HIGHEST,
                        preferred_element_type=jnp.float32)
         return _pack_bits_device(proj >= 0)
 
@@ -77,27 +82,30 @@ class ITQEncoder(NamedTuple):
             raise ValueError(f"need feature dim >= bits ({d} < {bits})")
         mean = x.mean(axis=0)
         xc = x - mean
-        cov = (xc.T @ xc) / max(n - 1, 1)
+        cov = jnp.dot(xc.T, xc, precision=_HIGHEST) / max(n - 1, 1)
         eigval, eigvec = jnp.linalg.eigh(cov)        # ascending
         w = eigvec[:, -bits:][:, ::-1]               # top-`bits` PCs
-        v = xc @ w                                   # [n, bits]
+        v = jnp.dot(xc, w, precision=_HIGHEST)       # [n, bits]
 
         key = jax.random.PRNGKey(seed)
         r0 = jnp.linalg.qr(
             jax.random.normal(key, (bits, bits), jnp.float32))[0]
 
         def itq_step(r, _):
-            z = v @ r
+            z = jnp.dot(v, r, precision=_HIGHEST)
             b = jnp.sign(z) + (z == 0)               # ±1
             # Procrustes: R = S @ S_hat^T from SVD of B^T V
-            u, _s, vt = jnp.linalg.svd(b.T @ v, full_matrices=False)
-            return (u @ vt).T, None
+            u, _s, vt = jnp.linalg.svd(jnp.dot(b.T, v, precision=_HIGHEST),
+                                       full_matrices=False)
+            return jnp.dot(u, vt, precision=_HIGHEST).T, None
         r, _ = jax.lax.scan(itq_step, r0, None, length=n_iters)
         return ITQEncoder(mean=mean, w=w, r=r)
 
     def encode(self, features: jax.Array) -> jax.Array:
         """f32[B, D] -> packed uint32[B, bits//32]."""
-        z = (features.astype(jnp.float32) - self.mean) @ self.w @ self.r
+        z = jnp.dot(jnp.dot(features.astype(jnp.float32) - self.mean,
+                            self.w, precision=_HIGHEST),
+                    self.r, precision=_HIGHEST)
         return _pack_bits_device(z >= 0)
 
 

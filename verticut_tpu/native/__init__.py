@@ -5,8 +5,8 @@ The native pieces cover the host side of the framework — the roles the
 reference implements in C++ (SURVEY.md §2 "native" rows): the cuckoo-hash
 KV store (Pilaf DHT analog), the streaming index builder
 (build_hash_tables analog), bitmap generation (generate_bitmap analog),
-and the CRC64/Murmur64 integrity primitives. The TPU compute path never
-calls these; they feed it.
+and the CRC64/Murmur64 integrity primitives. The device compute path
+never calls these; they feed it.
 """
 
 from __future__ import annotations

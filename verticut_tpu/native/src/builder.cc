@@ -6,7 +6,7 @@
 //   pass 1: histogram of the top 16 substring bits,
 //   pass 2: scatter (substring, id) into partitions,
 //   pass 3: per-partition comparison sort of packed (substring<<32 | id).
-// O(N log(N/2^16)) with sequential HBM-friendly output layout; the sorted
+// O(N log(N/2^16)) with a sequential output layout; the sorted
 // (key, id) columns feed the device directories directly.
 //
 // Also hosts the bitmap generator (src/generate_bitmap.cc analog) and the

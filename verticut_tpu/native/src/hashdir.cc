@@ -1,9 +1,9 @@
 // Cuckoo hash directory builder: substring value -> (start, count) rows.
 //
 // The device-side bucket directory for s_bits too wide for a dense table.
-// Probing on TPU is gather-latency-bound, so the directory is laid out as
+// Probing is gather-latency-bound, so the directory is laid out as
 // 16-byte rows [key, start, count, pad] — one XLA gather fetches a whole
-// row — and uses 2-way cuckoo hashing with multiply-shift hashes the VPU
+// row — and uses 2-way cuckoo hashing with multiply-shift hashes the device
 // can evaluate inline: every lookup costs exactly two independent row
 // gathers (vs ~10 dependent gathers for a bisection chain).
 //
@@ -21,7 +21,7 @@ namespace {
 // differ by the same delta, and MIH substrings are exactly such families
 // (cluster center ^ few bit flips) — dense enough to wedge cuckoo
 // insertion at <30% load. The xorshift stages break the linearity.
-// The TPU lookup evaluates the identical function on the VPU —
+// The device lookup evaluates the identical function —
 // see index/directory.py::_mix (constants must match).
 constexpr uint32_t kC1a = 0x85EBCA6Bu, kC1b = 0xC2B2AE35u;  // murmur3 fmix
 constexpr uint32_t kC2a = 0x7FEB352Du, kC2b = 0x846CA68Bu;  // lowbias32

@@ -1,11 +1,11 @@
 """Aligned-block chunk descriptors: variable (start, count) row ranges →
 fixed-budget lists of BLK-aligned block fetches.
 
-The TPU memory-system fact this encodes (measured, DESIGN.md §1): an XLA
-gather costs ~16 ns *per gathered row regardless of row width* up to
-~512 B, so fetching bucket entries one row at a time (16-32 B) runs at
-~1 GB/s while fetching the same entries as BLK-row aligned blocks
-(one "row" = BLK*32 B) runs at >30 GB/s. This is the TPU analog of the
+The memory-system fact this encodes: an XLA gather pays a fixed cost per
+gathered row, nearly regardless of row width up to ~512 B, so fetching
+bucket entries one row at a time (16-32 B) wastes most of that cost while
+fetching them as BLK-entry aligned blocks amortizes it (the per-row cost
+on the GPU is not yet measured, ROADMAP Queue 1). This is the analog of the
 reference reading a whole bucket per RDMA (``src/search_worker.cc:249``
 fetches the full ``Image_List`` blob, not per-entry) — latency amortized
 over a contiguous region.
@@ -82,7 +82,7 @@ def fetch_score_blocks(entry_rows: jax.Array, blk_id: jax.Array,
     at (INF, -1). One gather of CHB 512 B rows per query — the whole
     candidate fetch is CHB gather rows instead of CHB*blk — and the
     word-major layout makes id extraction and per-word XOR/popcount
-    static lane slices (full 128-lane VPU utilization).
+    static column slices.
     """
     from verticut_tpu.ops import topk
 

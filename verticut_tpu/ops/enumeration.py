@@ -3,9 +3,9 @@
 The reference enumerates all substring values at Hamming distance exactly
 ``r`` from the query substring with a recursive bit-flipper
 (``src/search_worker.cc:230-264``: flip bit ``len``, recurse with ``rr-1``).
-Recursion and data-dependent branching do not map to TPU; but the visited set
-is data-independent given ``(s_bits, r)`` — it is ``query ^ mask`` for every
-``mask`` with popcount ``r``. So we precompute the C(s_bits, r) masks once on
+Recursion and data-dependent branching do not map to a device program; but
+the visited set is data-independent given ``(s_bits, r)`` — it is
+``query ^ mask`` for every ``mask`` with popcount ``r``. So we precompute the C(s_bits, r) masks once on
 the host and the device applies them with a single vectorized XOR.
 
 Masks are emitted in the same order the reference's recursion visits them
@@ -59,7 +59,7 @@ def enumeration_cost(s_bits: int, radius: int, n_entries: int,
     """Expected candidate count for one more radius step (uniform buckets).
 
     Used by the search driver to decide when enumerating radius ``r`` costs
-    more than a brute-force scan of the table shard — the TPU-native
+    more than a brute-force scan of the table shard — the batched
     replacement for the reference's unconditional radius loop (which is only
     viable because its per-bucket RDMA reads are latency- not compute-bound).
     """

@@ -2,14 +2,18 @@
 
 Two formulations of the brute-force scan (``src/linear_search.cc:39-64``):
 
-* ``scan_popcount`` — XOR + ``lax.population_count`` on the VPU over packed
-  uint32 words (4 words per 128-bit code). HBM-light: 16 B per DB code.
-* ``scan_matmul`` — unpack codes to ±1 vectors and hit the MXU with a
-  ``[Q, B] x [B, N]`` GEMM (``dist = (B - dot)/2``). Compute-optimal for
-  large query batches; 128-bit codes match the 128-wide systolic array.
+* ``scan_popcount`` — XOR + ``lax.population_count`` over packed uint32
+  words (4 words per 128-bit code): 16 B per DB code. The independent
+  oracle.
+* ``scan_matmul`` — unpack codes to ±1 vectors and run a ``[Q, B] x [B, N]``
+  GEMM (``dist = (B - dot)/2``) on the tensor cores.
 
 Both chunk the DB along N inside ``lax.scan`` (static shapes; running
 bounded top-k carried through the scan).
+
+* ``scan_blockmin`` — the production scan: per-block minima from the ±1
+  GEMM (a fused Pallas-Triton kernel on the GPU), a fold over the blocks,
+  and an exact rescore of the k best blocks.
 """
 
 from __future__ import annotations
@@ -26,11 +30,11 @@ from verticut_tpu.ops import topk
 def _merge(pool, cd, ci, n, bits):
     if topk.can_pack(n - 1, bits):
         return topk.merge_topk_packed(pool[0], pool[1], cd, ci)
-    # >2^24-id path: the native two-key lax.sort merge (measured 2.7 ms at
-    # [1024, 200] on this chip — cheap, and safe in any program context
-    # unlike the sorting networks it replaced; see ops/topk wide-selection
-    # comment). Only serves >16.7M-row popcount/matmul scans —
-    # scan_blockmin (no _merge) is the scale engine.
+    # >2^24-id path: the native two-key lax.sort merge (safe in any
+    # program context, unlike the sorting networks it replaced; see the
+    # ops/topk wide-selection comment). Only serves >16.7M-row
+    # popcount/matmul scans — scan_blockmin (no _merge) is the scale
+    # engine.
     return topk.merge_topk(pool[0], pool[1], cd, ci)
 
 
@@ -38,9 +42,6 @@ def _pad_db(db: jax.Array, chunk: int):
     n = db.shape[0]
     n_pad = (-n) % chunk
     if n_pad:
-        # zeros + dynamic_update_slice, NOT jnp.pad: pad of a big [N, w]
-        # corpus was observed to materialize in a lane-padded tiled layout
-        # (w=4 pads to 128 lanes -> 32x bytes, fatal at 100M)
         out = jnp.zeros((n + n_pad, db.shape[1]), db.dtype)
         db = jax.lax.dynamic_update_slice(out, db, (0, 0))
     return db, n
@@ -66,211 +67,173 @@ def scan_popcount(queries: jax.Array, db: jax.Array, k: int,
     return pd, pi
 
 
-@functools.partial(jax.jit, static_argnames=("k", "chunk", "interpret"))
-def scan_pallas(queries: jax.Array, db: jax.Array, k: int,
-                chunk: int = 131072, interpret: bool = False):
-    """Exact top-k via the fused Pallas unpack+MXU kernel
-    (ops/pallas/linear_scan.py): packed codes never leave HBM unexpanded."""
-    from verticut_tpu.ops.pallas import pallas_pairwise_hamming
-    q_tile, t_tile = 256, 512
-    q, w = queries.shape
-    qp = (-q) % q_tile
-    if qp:
-        queries = jnp.pad(queries, ((0, qp), (0, 0)))
-    chunk = max(t_tile, (chunk // t_tile) * t_tile)
-    db_p, n = _pad_db(db, chunk)
-    n_chunks = db_p.shape[0] // chunk
-    db_c = db_p.reshape(n_chunks, chunk, w)
-    pool = topk.empty_pool(queries.shape[0], k)
-
-    def body(pool, args):
-        chunk_codes, base = args
-        d = pallas_pairwise_hamming(queries, chunk_codes, q_tile=q_tile,
-                                    t_tile=t_tile, interpret=interpret)
-        cd, ci = topk.chunk_topk_affine(d, base, k, n - base)
-        return _merge(pool, cd, ci, n, 32 * w), None
-
-    bases = jnp.arange(n_chunks, dtype=jnp.int32) * chunk
-    (pd, pi), _ = jax.lax.scan(body, pool, (db_c, bases))
-    return pd[:q], pi[:q]
+def use_scan_kernel(platform: str) -> bool:
+    """Whether pass 1 of :func:`scan_blockmin` runs the fused Pallas-Triton
+    kernel (ops/pallas/blockmin.py) on a JAX platform: on ``"gpu"``; the
+    plain XLA formulation runs anywhere else (the CPU the tests run on).
+    Read when scan_blockmin is traced."""
+    return platform == "gpu"
 
 
-@functools.partial(jax.jit, static_argnames=("k", "chunk", "block",
-                                             "engine"))
+#: cap on corpus rows per pass-1 call
+CHUNK_MAX = 4 * 1024 * 1024
+
+#: cap on Q * rows of the XLA pass 1's float32 distance slab (2 GB)
+XLA_SLAB = 1 << 29
+
+#: cap on Q * (chunk/block), the per-chunk selection operand; the
+#: select_desc ladder materializes ~3 uint32 copies of it, so 2^27 keys
+#: bound the fold's temporaries at ~1.6 GB
+TARGET_KEYS = 1 << 27
+
+
+def _pick_chunk(nfull: int, block: int, q: int, max_rows: int) -> int:
+    """Rows per pass-1 call: the largest power-of-two multiple of ``block``
+    that fits in the ``nfull`` whole blocks and in ``max_rows``, and keeps
+    the selection operand ``q * (chunk/block)`` under TARGET_KEYS."""
+    cb = 1
+    while (2 * cb <= nfull and 2 * cb * block <= max_rows
+           and q * 2 * cb <= TARGET_KEYS):
+        cb *= 2
+    return cb * block
+
+
+def _blockmin_xla(q_pm: jax.Array, rows: jax.Array, block: int) -> jax.Array:
+    """Plain-XLA pass 1 and the kernel's reference: ``±1[Q, B] x
+    uint32[R, W] -> int32[Q, R/block]`` per-block Hamming minima (one GEMM
+    into a float32 [Q, R] slab, then a block reduction)."""
+    bits = q_pm.shape[1]
+    dot = jax.lax.dot_general(
+        q_pm, codes_lib.unpack_bits_pm1(rows),
+        dimension_numbers=(((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.float32)
+    d = ((bits - dot) * 0.5).astype(jnp.int32)
+    return jnp.min(d.reshape(q_pm.shape[0], -1, block), axis=-1)
+
+
+@functools.partial(jax.jit, static_argnames=("k", "block", "interpret"))
 def scan_blockmin(queries: jax.Array, db: jax.Array, k: int,
-                  chunk: int = 65536, block: int = 512,
-                  engine: str = "auto"):
-    """Exact top-k via block-min pre-selection — the TPU-native selection.
+                  block: int = 512, interpret: bool = False):
+    """Exact top-k via block-min pre-selection.
 
-    Any per-chunk ``top_k`` over the [Q, N] distance matrix costs a sort
-    of the full width (~50-120 ms per [8192, 32k] slab on v5e); reductions
-    cost ~12 ms. So: reduce first, sort almost nothing.
+    Any per-chunk ``top_k`` over the [Q, N] distance matrix is a sort of
+    the full width; a reduction is not. So: reduce first, sort almost
+    nothing.
 
-    1. One MXU GEMM pass computes per-``block`` distance minima
-       ``blk_min int32[Q, N/block]`` (a pure reduction — no wide sort).
-    2. A stable ``top_k`` over blocks picks the k blocks with smallest
-       minima. These provably contain the exact (dist, id)-lexicographic
-       top-k: if winner w (rank <= k) sat in an unchosen block, each of
-       the k chosen blocks would hold an element with smaller blk_min —
-       i.e. strictly smaller distance, or equal distance in an
-       earlier-indexed block and hence smaller id — giving k elements
-       ordered before w, contradicting rank(w) <= k.
+    1. Pass 1 computes per-``block`` distance minima of every whole block
+       with the ±1 GEMM (``dist = (B - dot)/2``) — the Pallas-Triton kernel
+       where :func:`use_scan_kernel` says so (``interpret`` runs it in the
+       Pallas interpreter), the XLA formulation elsewhere.
+       Chunks of whole blocks fold into a ``[Q, kb]`` carry of packed
+       (min, block-idx) keys, so peak memory is bounded by TARGET_KEYS at
+       any corpus size. The straddling tail block's minimum is computed
+       exactly over its valid rows with popcount.
+    2. The fold keeps the k blocks with the smallest minima. These provably
+       contain the exact (dist, id)-lexicographic top-k: if winner w
+       (rank <= k) sat in an unchosen block, each of the k chosen blocks
+       would hold an element with smaller blk_min — i.e. strictly smaller
+       distance, or equal distance in an earlier-indexed block and hence
+       smaller id — giving k elements ordered before w, contradicting
+       rank(w) <= k.
     3. Gather just those k code blocks (k*block*16 B per query), rescore
        with XOR+popcount, and select over the narrow [Q, k*block] strip.
 
-    Block ids are sorted ascending before the gather so in-strip order is
-    ascending global position, letting the final selection pack
-    (dist, local_pos) into one uint32 key for ANY corpus size.
+    Reads the row-major ``uint32[N, W]`` corpus in place: no padded or
+    transposed copy.
     """
     q, w = queries.shape
     bits = w * 32
-    if chunk % block:
-        raise ValueError(f"chunk {chunk} not a multiple of block {block}")
-    qpm = codes_lib.unpack_bits_pm1(queries)              # [Q, B]
-    db_p, n = _pad_db(db, chunk)
-    n_pad_rows = db_p.shape[0]
-    n_chunks = n_pad_rows // chunk
-    nb = n_pad_rows // block
-    pos0 = jax.lax.broadcasted_iota(jnp.int32, (1, chunk), 1)
+    n = db.shape[0]
+    nfull, rem = divmod(n, block)
+    nb_valid = nfull + (1 if rem else 0)
+    kb = min(k, nb_valid)
+    idx_bits = max(1, (nb_valid - 1).bit_length())
+    if (bits + 1).bit_length() + idx_bits > 32:
+        raise ValueError(f"(bits={bits}, blocks={nb_valid}) keys do not "
+                         "pack into uint32")
+    mask_i = jnp.uint32((1 << idx_bits) - 1)
 
-    if engine == "auto":
-        # Mosaic requires the db operand in the default (8,128)-tiled
-        # layout; for a [N, 4] corpus XLA inserts a 32x relayout copy
-        # (64 B/code) before the kernel. Up to ~24M codes that transient
-        # is ~1.5 GB and the kernel's fused epilogue is a measured 2x win
-        # (DESIGN.md §1); beyond it the copy alone OOMs a 16 GB chip
-        # (51 GB at 100M — observed). Large corpora take the XLA
-        # fori_loop path, whose dynamic_slice reads [N, 4] in place.
-        fits = n_pad_rows * w * 4 * 32 <= (3 << 29)
-        engine = ("pallas" if fits and jax.devices()[0].platform == "tpu"
-                  else "xla")
-    kb = min(k, nb)
-    idx_bits = max(1, (nb - 1).bit_length())
-    packable = (bits + 1).bit_length() <= 32 - idx_bits
+    def keys_of(dmin, gidx):
+        return ~((jnp.clip(dmin, 0, bits + 1).astype(jnp.uint32)
+                  << idx_bits) | gidx)
 
-    def _chunk_blockmin(i):
-        """[Q, chunk//block] per-block minima of chunk i (XLA GEMM path)."""
-        base = i * chunk
-        chunk_codes = jax.lax.dynamic_slice(db_p, (base, 0), (chunk, w))
-        dpm = codes_lib.unpack_bits_pm1(chunk_codes)
-        dot = jax.lax.dot_general(
-            qpm, dpm, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        d = ((bits - dot) * 0.5).astype(jnp.int32)
-        d = jnp.where(pos0 + base < n, d, topk.INF_DIST)  # pad rows
-        return jnp.min(d.reshape(q, chunk // block, block), axis=-1)
-
-    if engine == "pallas" and chunk % (128 * block) == 0:
-        # fused unpack+GEMM+max-epilogue kernel: the [Q, chunk] distance
-        # slab never touches HBM (pass 1 alone measured 232 ms -> the
-        # kernel's traffic bound is 16 B/db code; VERDICT r2 #4)
-        from verticut_tpu.ops.pallas import pallas_blockmin
-        blk_min = pallas_blockmin(queries, db_p, n, block=block)
-        if packable and nb > 2 * kb:
-            # packed block selection (ops/topk.select_desc): lax.top_k
-            # over a wide [Q, nb] axis is a full sort at runtime AND
-            # compiles pathologically (DESIGN.md §1); ties break to the
-            # lower block index, matching stable top_k
-            biota = jax.lax.broadcasted_iota(jnp.uint32, blk_min.shape, 1)
-            bkey = ~((jnp.clip(blk_min, 0, bits + 1).astype(jnp.uint32)
-                      << idx_bits) | biota)
-            bidx = (~topk.select_desc(bkey, kb)
-                    & jnp.uint32((1 << idx_bits) - 1)).astype(jnp.int32)
+    top = jnp.zeros((q, kb), jnp.uint32)
+    if nfull:
+        kernel = use_scan_kernel(jax.default_backend())
+        if kernel:
+            from verticut_tpu.ops.pallas import blockmin as kern
+            q_pm = kern.unpack_queries(queries)
         else:
-            _, bidx = jax.lax.top_k(-blk_min, kb)         # stable: ties ->
-    elif packable:
-        # XLA path with block selection FOLDED INTO the scan loop: the
-        # carry is [Q, kb] packed (min, block-idx) keys, never the full
-        # [Q, nb] minima matrix — at 100M codes that matrix is 6 GB at
-        # Q=8192 and its selection ladder another 2x6 GB of sort temps
-        # (observed OOM); the folded merge is a narrow [Q, kb + cb]
-        # select per chunk. Same (min asc, idx asc) tie rule.
-        cb = chunk // block
-        mask_i = jnp.uint32((1 << idx_bits) - 1)
+            q_pm = codes_lib.unpack_bits_pm1(queries)
+        ch = _pick_chunk(nfull, block, q, CHUNK_MAX if kernel
+                         else min(CHUNK_MAX, XLA_SLAB // q))
+        cb = ch // block
+        last = nfull * block - ch
 
-        def body(i, carry):
-            bm = _chunk_blockmin(i)
+        def body(c, carry):
+            # the last chunk is pulled back to end at the last whole block;
+            # blocks it shares with the previous chunk are masked to the
+            # 0 sentinel so no block is selected twice
+            start = jnp.minimum(c * ch, last)
+            rows = jax.lax.dynamic_slice(db, (start, 0), (ch, w))
+            if kernel:
+                bm = kern.blockmin_pass1(q_pm, rows, block=block,
+                                         interpret=interpret)[:q]
+            else:
+                bm = _blockmin_xla(q_pm, rows, block)
             gidx = (jax.lax.broadcasted_iota(jnp.uint32, (1, cb), 1)
-                    + (i * cb).astype(jnp.uint32))
-            keys = ~((jnp.clip(bm, 0, bits + 1).astype(jnp.uint32)
-                      << idx_bits) | gidx)
-            return topk.select_desc(
-                jnp.concatenate([carry, keys], axis=-1), kb)
+                    + (start // block).astype(jnp.uint32))
+            keys = jnp.where(gidx < (c * cb).astype(jnp.uint32),
+                             jnp.uint32(0), keys_of(bm, gidx))
+            return topk.select_desc(jnp.concatenate([carry, keys], axis=-1),
+                                    kb)
 
-        top = jax.lax.fori_loop(0, n_chunks, body,
-                                jnp.zeros((q, kb), jnp.uint32))
-        # every block emits a valid key (clip keeps mins in-range), and
-        # nb >= kb, so the zero init sentinels cannot survive the loop
-        bidx = ((~top) & mask_i).astype(jnp.int32)
-    else:
-        # unpackable widths (tiny corpora / very wide codes): materialize
-        # [Q, nb] and select directly — small by construction here
-        def body(i, blk_min):
-            return jax.lax.dynamic_update_slice(
-                blk_min, _chunk_blockmin(i), (0, i * (chunk // block)))
-
-        blk_min = jax.lax.fori_loop(
-            0, n_chunks, body,
-            jnp.full((q, nb), topk.INF_DIST, jnp.int32))
-        _, bidx = jax.lax.top_k(-blk_min, kb)             # stable: ties ->
-    return _rescore_blocks(queries, db_p, n, bidx, k, block)
+        top = jax.lax.fori_loop(0, -(-nfull // cb), body, top)
+    if rem:
+        tail = db[nfull * block:]                          # [rem, W]
+        td = jnp.min(jnp.sum(jax.lax.population_count(
+            tail[None, :, :] ^ queries[:, None, :]).astype(jnp.int32),
+            axis=-1), axis=-1)                             # [Q]
+        top = topk.select_desc(jnp.concatenate(
+            [top, keys_of(td, jnp.uint32(nfull))[:, None]], axis=-1), kb)
+    # nb_valid >= kb and every valid block emits a nonzero key, so the
+    # zero init sentinels cannot survive the fold
+    bidx = ((~top) & mask_i).astype(jnp.int32)
+    return _rescore_blocks(queries, db, bidx, k, block)
 
 
-def _rescore_blocks(queries, db_p, n, bidx, k: int, block: int,
-                    db_rows=None):
+def _rescore_blocks(queries, db, bidx, k: int, block: int):
     """Gather the selected blocks, rescore exactly with popcount, select
-    the (dist, id)-lexicographic top-k over the narrow strip. Shared by
-    :func:`scan_blockmin` and :func:`scan_blockmin_t`. ``db_p`` must have
-    >= (max(bidx)+1)*block rows.
-
-    ``db_rows`` (``uint32[Npad/128, W*128]``, codes.rescore_rows_layout):
-    when given, blocks are fetched as plain 128-code ROW gathers — ~20
-    ns/row vs ~1.4 us per multi-row slice (70x at the k=100 tier shapes,
-    tools/microbench_r5.py) — the r5 fix for the gather-issue-bound
-    rescore (VERDICT r4 #4 / PROFILE_SCAN_r04)."""
+    the (dist, id)-lexicographic top-k over the narrow strip."""
     q, w = queries.shape
+    n = db.shape[0]
     kb = bidx.shape[1]
+    if n < block:
+        db = jnp.zeros((block, w), db.dtype).at[:n].set(db)
     bidx = jnp.sort(bidx, axis=-1)                        # ascending pos
-    if db_rows is not None and block % 128 == 0:
-        m = block // 128
-        nb128 = db_rows.shape[0]
-        ridx = bidx[:, :, None] * m + jax.lax.broadcasted_iota(
-            jnp.int32, (1, 1, m), 2)                      # [Q, kb, m]
-        g = db_rows[jnp.clip(ridx.reshape(q, kb * m), 0, nb128 - 1)]
-        d = jnp.zeros((q, kb * m, 128), jnp.int32)
-        for j in range(w):
-            d = d + jax.lax.population_count(
-                g[..., j * 128:(j + 1) * 128]
-                ^ queries[:, j, None, None]).astype(jnp.int32)
-        d = d.reshape(q, kb, block)
-    else:
-        # slice-gather straight off the [N, w] corpus — reshaping it to
-        # [nb, block*w] first forces a lane-padded tiled copy (32x at w=4)
-        dn = jax.lax.GatherDimensionNumbers(
-            offset_dims=(2, 3), collapsed_slice_dims=(),
-            start_index_map=(0,))
-        g = jax.lax.gather(db_p, (bidx * block)[..., None], dn,
-                           slice_sizes=(block, w),
-                           mode=jax.lax.GatherScatterMode.CLIP)  # [Q,kb,b,W]
-        d = jnp.sum(jax.lax.population_count(
-            g ^ queries[:, None, None, :]).astype(jnp.int32), axis=-1)
-    pos = bidx[:, :, None] * block + jax.lax.broadcasted_iota(
-        jnp.int32, (1, 1, block), 2)
-    valid = pos < n
+    # a slice may not run past the corpus, so the straddling block's
+    # slice starts early; rows before the block's own start are masked
+    start = jnp.minimum(bidx * block, db.shape[0] - block)
+    dn = jax.lax.GatherDimensionNumbers(
+        offset_dims=(2, 3), collapsed_slice_dims=(), start_index_map=(0,))
+    g = jax.lax.gather(db, start[..., None], dn, slice_sizes=(block, w),
+                       mode=jax.lax.GatherScatterMode.CLIP)
+    d = jnp.sum(jax.lax.population_count(
+        g ^ queries[:, None, None, :]).astype(jnp.int32), axis=-1)
+    pos = start[:, :, None] + jax.lax.broadcasted_iota(
+        jnp.int32, (1, 1, block), 2)                      # [Q, kb, block]
+    valid = (pos >= (bidx * block)[:, :, None]) & (pos < n)
     d = jnp.where(valid, d, topk.INF_DIST).reshape(q, kb * block)
     pos = pos.reshape(q, kb * block)
 
     # final selection on the narrow strip; the local index packs under
-    # dist (in-strip order == ascending global position) and the sentinel
-    # 0x7FFFFFFF (int32 max) sorts last, so plain int32 top_k is exact
+    # dist (valid in-strip order == ascending global position) and the
+    # sentinel 0x7FFFFFFF (int32 max) sorts last, so plain int32 top_k is
+    # exact
     li_bits = max(1, (kb * block - 1).bit_length())
     li = jax.lax.broadcasted_iota(jnp.int32, (1, kb * block), 1)
     sent = 0x7FFFFFFF  # dist <= 512 and li_bits <= 19: sign bit stays 0
     packed = jnp.where(d < topk.INF_DIST, (d << li_bits) | li, sent)
-    # blockwise shrink selection over the inverted strip (select_desc; the
-    # tournament network that briefly replaced it returned WRONG results
-    # at this site — [32, 64000]→500 top-level, caught by the on-chip
-    # oracle drive — and was slower: 33 vs 3 ms)
     kk = min(k, kb * block)
     top = (~topk.select_desc(~packed.astype(jnp.uint32), kk)).astype(jnp.int32)
     invalid = top == sent
@@ -285,131 +248,13 @@ def _rescore_blocks(queries, db_p, n, bidx, k: int, block: int,
     return out_d, out_i
 
 
-#: cap on codes per Pallas call in scan_blockmin_t.
-#: codes.transpose_scan_layout pads corpora beyond one chunk to a CHUNK_T
-#: multiple so the fori_loop's dynamic_slice never clamps (a clamped
-#: overlap would relabel block ids).
-CHUNK_T = codes_lib.SCAN_CHUNK
-
-#: cap on Q * (chunk/block) — the per-chunk selection operand. The
-#: select_desc ladder materializes ~3 uint32 copies of it (padded input +
-#: key/iota sort temps), so 2^27 keys ≈ 1.6 GB peak: small enough to fit
-#: beside a 100M inline index whose arguments already hold ~12.6 GB of
-#: the 15.75 GB HBM (the r3 k=100@100M cell OOM'd by 52 MB at 2^28.3).
-TARGET_KEYS_T = 1 << 27
-
-
-def _pick_chunk_t(npad: int, block: int, q: int) -> int:
-    """Largest per-call chunk that (a) is a multiple of the kernel grid
-    unit 128*block, (b) divides npad exactly (no clamped overlap), (c)
-    stays under CHUNK_T, and (d) keeps the selection slab q*(ch/block)
-    under TARGET_KEYS_T. Q-adaptive: oracle scans (Q≈32) get 4M-code
-    chunks, full serving batches (Q=8192) get ~2M at block=128."""
-    ch = 128 * block
-    if npad % ch:
-        raise ValueError(f"npad={npad} not a multiple of 128*block={ch}")
-    while (ch * 2 <= min(npad, CHUNK_T) and npad % (ch * 2) == 0
-           and q * ((ch * 2) // block) <= TARGET_KEYS_T):
-        ch *= 2
-    return ch
-
-
-@functools.partial(jax.jit, static_argnames=("k", "block", "acc",
-                                             "interpret"))
-def scan_blockmin_t(queries: jax.Array, db: jax.Array, db_t: jax.Array,
-                    k: int, block: int = 512, acc: str = "bf16",
-                    interpret: bool = False, db_rows=None):
-    """Exact top-k block-min scan off the TRANSPOSED corpus copy.
-
-    Same contract and selection proof as :func:`scan_blockmin`, but pass 1
-    is the no-relayout fused Pallas kernel (ops/pallas.pallas_blockmin_t)
-    at ANY corpus size — the engine for 24M+ scans where the row-major
-    kernel's relayout copy OOMs and the XLA path writes [Q, chunk] slabs
-    (measured 19.5 s/batch at 100M, Q=8192 — the r3 uniform cell).
-
-    ``db_t`` is ``uint32[8, Npad]`` from codes.transpose_scan_layout(db);
-    block selection folds over chunked kernel calls (_pick_chunk_t) with a
-    packed (min, block-idx) carry, so peak temp memory is bounded by
-    TARGET_KEYS_T keys regardless of corpus size or query count.
-    """
-    q, w = queries.shape
-    bits = w * 32
-    n = db.shape[0]
-    npad = db_t.shape[1]
-    nb = npad // block
-    idx_bits = max(1, (nb - 1).bit_length())
-    if (bits + 1).bit_length() + idx_bits > 32:
-        raise ValueError(
-            f"(bits={bits}, nb={nb}) keys don't pack into uint32 — "
-            "use scan_blockmin(engine='xla')")
-    nfull = n // block
-    rem = n - nfull * block
-    nb_valid = nfull + (1 if rem else 0)
-    kb = min(k, nb_valid)
-    ch = _pick_chunk_t(npad, block, q)
-    cb = ch // block
-    mask_i = jnp.uint32((1 << idx_bits) - 1)
-
-    from verticut_tpu.ops.pallas import pallas_blockmin_t, pallas_blockmin_t2
-
-    # Resident-queries kernel for big batches: the rhs bit-unpack runs
-    # once per db tile instead of once per (q_tile, db tile) pair —
-    # measured 233 -> 214 ms at 16M/Q=8192 (tools/t2 sweep, r4); the
-    # per-q-tile kernel stays for small batches (oracle scans, straggler
-    # tiers), where the resident whole-Q operand buys nothing. Upper
-    # bound too (ADVICE r4): t2's VMEM residency grows with Q (bf16
-    # query operand + [qpad, 128] output tile on top of the fixed 8 MB
-    # f32 dot slab) and overflows the ~16 MB scoped budget near Q=16k —
-    # the Q-independent per-q-tile kernel takes over there.
-    use_t2 = 2048 < q <= 8192
-
-    def body(c, carry):
-        sl = jax.lax.dynamic_slice(db_t, (0, c * ch), (8, ch))
-        if use_t2:
-            bm = pallas_blockmin_t2(queries, sl, block=block, acc=acc,
-                                    interpret=interpret)    # [Q, cb]
-        else:
-            bm = pallas_blockmin_t(queries, sl, block=block, acc=acc,
-                                   interpret=interpret)     # [Q, cb]
-        gidx = (jax.lax.broadcasted_iota(jnp.uint32, (1, cb), 1)
-                + (c * cb).astype(jnp.uint32))
-        keys = ~((jnp.clip(bm, 0, bits + 1).astype(jnp.uint32)
-                  << idx_bits) | gidx)
-        # pad blocks (>= nb_valid) and the straddling block min over pad
-        # rows (zeros!) would be wrong — mask to the 0 sentinel; the
-        # straddling block re-enters as an exact candidate below
-        keys = jnp.where(gidx >= jnp.uint32(nfull), jnp.uint32(0), keys)
-        return topk.select_desc(jnp.concatenate([carry, keys], axis=-1), kb)
-
-    top = jax.lax.fori_loop(0, npad // ch, body,
-                            jnp.zeros((q, kb), jnp.uint32))
-    if rem:
-        # exact straddling-block min over its valid rows only
-        tail = jax.lax.dynamic_slice(db_t, (0, nfull * block), (8, block))
-        td = jnp.sum(jax.lax.population_count(
-            tail[:w].T[None, :, :] ^ queries[:, None, :]).astype(jnp.int32),
-            axis=-1)                                       # [Q, block]
-        pos = jax.lax.broadcasted_iota(jnp.int32, (1, block), 1)
-        td = jnp.min(jnp.where(pos < rem, td, bits + 1), axis=-1)
-        tkey = ~((jnp.clip(td, 0, bits + 1).astype(jnp.uint32)
-                  << idx_bits) | jnp.uint32(nfull))
-        top = topk.select_desc(
-            jnp.concatenate([top, tkey[:, None]], axis=-1), kb)
-    # nb_valid >= kb and every valid block emits a nonzero key, so the
-    # zero init sentinels cannot survive the fold
-    bidx = ((~top) & mask_i).astype(jnp.int32)
-    db_p, _ = _pad_db(db, block)
-    return _rescore_blocks(queries, db_p, n, bidx, k, block,
-                           db_rows=db_rows)
-
-
 @functools.partial(jax.jit, static_argnames=("k", "chunk"))
 def scan_matmul(queries: jax.Array, db: jax.Array, k: int,
                 chunk: int = 32768):
-    """Exact top-k via the MXU ±1 GEMM formulation.
+    """Exact top-k via the ±1 GEMM formulation.
 
-    Unpacks each DB chunk to bf16 ±1 on the fly (HBM reads stay packed; the
-    unpack fuses into the producer side of the GEMM under XLA).
+    Unpacks each DB chunk to bf16 ±1 on the fly (device-memory reads stay
+    packed; the unpack fuses into the producer side of the GEMM under XLA).
     """
     bits = db.shape[-1] * 32
     qpm = codes_lib.unpack_bits_pm1(queries)          # [Q, B]

@@ -1,3 +1,1 @@
-from verticut_tpu.ops.pallas.linear_scan import (  # noqa: F401
-    pallas_blockmin, pallas_blockmin_t, pallas_blockmin_t2,
-    pallas_pairwise_hamming)
+"""Hand-written Pallas kernels (the Triton route) and their wrappers."""

@@ -1,4 +1,7 @@
-"""Collective primitives — the ``mpi_coordinator`` analog on ICI.
+"""Collective primitives — the ``mpi_coordinator`` analog.
+
+XLA lowers them to NCCL collectives between the cards of one host (NVLink,
+all to all) and to in-process copies on the CPU test mesh.
 
 Semantic mapping (SURVEY.md §5, "Distributed communication backend"):
 
@@ -48,8 +51,8 @@ def gather_strips(strips: jax.Array, axes: Axis) -> jax.Array:
     """All-gather a single pre-merged strip array ``[Q, S] ->
     [Q, n_devices*S]``. Per-device pre-merge (ops/topk.table_topk_*)
     shrinks the per-radius collective payload from m·cap candidate slots
-    to pool_size keys per device — the all_gather rides ICI either way,
-    but the merge behind it gets (m+1)·P-wide operands instead of m·cap."""
+    to pool_size keys per device, and the merge behind the all_gather
+    gets (m+1)·P-wide operands instead of m·cap."""
     g = jax.lax.all_gather(strips, axes, axis=0)       # [D, Q, S]
     return jnp.moveaxis(g, 0, 1).reshape(g.shape[1], g.shape[0] * g.shape[2])
 

@@ -11,7 +11,10 @@ front-end (``src/image_search_server.cc:58-83``) — maps onto a 3-D
 
 * ``table`` — which substring hash table a device slice owns.
 * ``shard`` — contiguous range-partition of a table's CSR rows (the
-  storage-server scaling axis; collectives ride ICI, not DCN).
+  storage-server scaling axis).
+
+Every card of a host reaches every other over NVLink at the same rate, so
+the mesh shape follows the algorithm alone.
 * ``query`` — embarrassingly parallel query-batch sharding.
 """
 

@@ -15,65 +15,38 @@ from verticut_tpu.ops import hamming
 
 
 def linear_search(queries, db, k: int, method: str = "auto",
-                  chunk: int = 65536, db_t=None, db_rows=None):
+                  chunk: int = 65536):
     """Exact top-k: returns ``(dists int32[Q, k], ids int32[Q, k])``
     ascending by (dist, id).
 
-    method: "auto" on TPU picks the block-min pre-selection scan — the
-    fused no-relayout Pallas kernel when a transposed corpus copy ``db_t``
-    (codes.transpose_scan_layout / MIHIndex.codes_t) is supplied, the XLA
-    GEMM formulation otherwise — and the VPU popcount scan off-TPU. All
-    exact (distances ≤ bits are integers exactly representable in bf16
-    dots). Small query batches route through blockmin too: the popcount
-    path's per-chunk merges are wide-sort-bound above 2^24 ids (measured
-    4.5 s for 32 queries at 100M vs ~0.3 s blockmin).
+    method: "auto" is the production scan, the block-min pre-selection
+    scan (:func:`hamming.scan_blockmin`, whose pass 1 follows
+    :func:`hamming.use_scan_kernel`). "popcount" is the independent oracle:
+    XOR + popcount with per-chunk merges, sharing no selection machinery
+    with the production scan. "matmul" is the ±1 GEMM with per-chunk
+    merges. All are exact (distances <= bits are integers, exact in the
+    GEMM's int8/bf16 operands and int32/f32 sums).
     """
     queries = jnp.asarray(queries, jnp.uint32)
     db = jnp.asarray(db, jnp.uint32)
     chunk = min(chunk, max(db.shape[0], 8))
     if method == "auto":
-        import jax
-        on_tpu = jax.devices()[0].platform == "tpu"
-        method = "blockmin" if on_tpu else "popcount"
-    from verticut_tpu.utils.retry import with_compile_retry
-    if method == "blockmin":
         # narrower blocks at large k (the rescore gathers k blocks/query),
         # and slice the query batch so the [Q, k, block, W] rescore buffer
-        # stays bounded — at (q=8192, k=500, block=512) it is 33 GB and
-        # OOMs the chip (observed in the r3 oracle drive)
+        # stays bounded (at q=8192, k=500, block=512 it would be 33 GB)
         block = 512 if k <= 32 else 128
-
-        def one(sq):
-            if db_t is not None:
-                nb_pad = db_t.shape[1] // block
-                packable = ((db.shape[1] * 32 + 1).bit_length()
-                            + max(1, (nb_pad - 1).bit_length())) <= 32
-                if packable:
-                    return hamming.scan_blockmin_t(sq, db, db_t, k,
-                                                   block=block,
-                                                   db_rows=db_rows)
-            return hamming.scan_blockmin(sq, db, k,
-                                         chunk=max(chunk, 512 * 8),
-                                         block=block)
-
         per_q = max(1, k * block * db.shape[1] * 4)
         max_q = max(256, (1 << 31) // per_q)
         nq = queries.shape[0]
-        if nq > max_q:
-            parts = [with_compile_retry(
-                lambda lo=lo: one(queries[lo:lo + max_q]))
-                for lo in range(0, nq, max_q)]
-            return (jnp.concatenate([p[0] for p in parts]),
-                    jnp.concatenate([p[1] for p in parts]))
-        return with_compile_retry(lambda: one(queries))
+        parts = [hamming.scan_blockmin(queries[lo:lo + max_q], db, k,
+                                       block=block)
+                 for lo in range(0, nq, max_q)]
+        if len(parts) == 1:
+            return parts[0]
+        return (jnp.concatenate([p[0] for p in parts]),
+                jnp.concatenate([p[1] for p in parts]))
     if method == "popcount":
-        return with_compile_retry(
-            lambda: hamming.scan_popcount(queries, db, k, chunk=chunk))
-    elif method == "matmul":
+        return hamming.scan_popcount(queries, db, k, chunk=chunk)
+    if method == "matmul":
         return hamming.scan_matmul(queries, db, k, chunk=chunk)
-    elif method == "pallas":
-        import jax
-        interp = jax.devices()[0].platform != "tpu"
-        return hamming.scan_pallas(queries, db, k, chunk=max(chunk, 512),
-                                   interpret=interp)
     raise ValueError(f"unknown method {method!r}")

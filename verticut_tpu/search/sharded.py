@@ -27,8 +27,7 @@ Two drivers share the per-device step:
   schedule (+ device-side overflow retry + straggler scan) runs as ONE
   shard_map dispatch via search.single.run_pipeline — the multi-chip
   analog of the fused single-device pipeline (one host sync per batch
-  instead of one per radius; the reference hides that latency inside MPI,
-  a luxury a remote-device host loop does not get).
+  instead of one per radius; the reference hides that latency inside MPI).
 * the per-radius host loop (``fused=False``) — simple, used by tests as a
   second opinion.
 """
@@ -294,7 +293,7 @@ def _device_linear(codes_loc, queries, k, n_loc, n_total):
 @functools.partial(jax.jit, static_argnames=("mesh", "k", "n_total"))
 def sharded_linear_search(mesh: Mesh, codes_arr, queries, k: int,
                           n_total: Optional[int] = None):
-    """Exact top-k over row-sharded codes; pools merged over ICI."""
+    """Exact top-k over row-sharded codes; pools merged by all-gather."""
     n_loc = codes_arr.shape[0] // (mesh.shape["table"] * mesh.shape["shard"])
     fn = functools.partial(_device_linear, k=k, n_loc=n_loc,
                            n_total=n_total or codes_arr.shape[0])
@@ -405,9 +404,9 @@ def _sharded_fused_search(index: ShardedMIHIndex, queries,
                                                  + 2 * (i - 1)))
         for i in range(len(schedule)))
     masks_tuple = tuple(_device_masks(index.pbits, g) for _, g in schedule)
-    # x2, matching the single-device driver's measured sizing (commit
-    # "Halve the device-retry caps"): covers the clustered hot range at
-    # half the cost; rare double-overflows take the host retry (x4)
+    # x2, matching the single-device driver's sizing: covers the
+    # clustered hot range at half the cost; rare double-overflows take
+    # the host retry (x4)
     retry_caps = tuple(min(c * 2, max(scfg.candidate_cap, c)) for c in caps)
     scan_budget = min(nq_loc, max(64, nq_loc // 64))
     # same exact-mode ladder policy as the single-device driver

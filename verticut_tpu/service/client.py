@@ -9,9 +9,8 @@ import queue
 import socket
 import threading
 
-import msgpack
-
 from verticut_tpu.config import DEFAULT_SERVER_PORT
+from verticut_tpu.service import wire
 
 DEFAULT_TIMEOUT_S = 480.0  # src/image_search_client.cc:29
 POOL_SIZE = 20             # :7-9
@@ -66,12 +65,11 @@ class ImageSearchClient:
 
     def _call_once(self, method: str, params):
         msgid = next(self._msgid)
-        payload = msgpack.packb([0, msgid, method, list(params)],
-                                use_bin_type=True)
+        payload = wire.packb([0, msgid, method, list(params)])
         s = self._acquire()
         try:
             s.sendall(payload)
-            unpacker = msgpack.Unpacker(raw=False)
+            unpacker = wire.Unpacker()
             result = None
             found = False
             while not found:

@@ -2,8 +2,8 @@
 
 The reference front-end (``src/image_search_server.cc``) receives a
 msgpack-RPC call, picks a random worker host, and *ssh-launches* an mpirun
-job per query, parsing stdout. Here the index lives in HBM next to the
-server process, so dispatch is a direct library call; and because the
+job per query, parsing stdout. Here the index lives in device memory next
+to the server process, so dispatch is a direct library call; and because the
 engine is batched, the server micro-batches concurrent requests into one
 device launch (request-level parallelism axis of SURVEY.md §2 without
 process churn).
@@ -26,11 +26,11 @@ import socketserver
 import threading
 from typing import Optional
 
-import msgpack
 import numpy as np
 
 from verticut_tpu import codes as codes_lib
 from verticut_tpu.config import SearchConfig, DEFAULT_SERVER_PORT
+from verticut_tpu.service import wire
 from verticut_tpu.utils.logging import get_logger
 from verticut_tpu.utils.timer import Timer
 
@@ -39,7 +39,7 @@ log = get_logger("service")
 
 class _Handler(socketserver.BaseRequestHandler):
     def handle(self):
-        unpacker = msgpack.Unpacker(raw=False)
+        unpacker = wire.Unpacker()
         sock = self.request
         self.server.owner._conns.add(sock)
         try:
@@ -67,7 +67,7 @@ class _Handler(socketserver.BaseRequestHandler):
         except Exception as e:  # noqa: BLE001 — errors go on the wire
             log.warning("rpc %s failed: %s", method, e)
             resp = [1, msgid, f"{type(e).__name__}: {e}", None]
-        sock.sendall(msgpack.packb(resp, use_bin_type=True))
+        sock.sendall(wire.packb(resp))
 
 
 class _Server(socketserver.ThreadingTCPServer):
@@ -95,13 +95,12 @@ class ImageSearchServer:
         self.epoch = 0
         self._conns: set = set()
         # micro-batching: ONE worker thread owns the device and drains a
-        # FIFO of (key, slot, event) work items. The previous design —
-        # leader election among request threads with a condition-variable
-        # handoff — collapsed at 64 concurrent clients (SERVING_r04: p99
-        # 2.06 s vs 118 ms at 16): unbounded drains grew device batches
-        # while late waiters burned 1 s condition timeouts on missed
-        # wakeups. A dedicated worker bounds every request's wait to at
-        # most (in-flight batch + own batch) and caps the batch rows.
+        # FIFO of (key, slot, event) work items. Leader election among
+        # request threads with a condition-variable handoff lets drains
+        # grow device batches without bound while late waiters sit out
+        # condition timeouts on missed wakeups. A dedicated worker bounds
+        # every request's wait to at most (in-flight batch + own batch)
+        # and caps the batch rows.
         self._work: "queue.Queue" = queue.Queue()
         self._worker: Optional[threading.Thread] = None
         self._running = False
@@ -318,11 +317,9 @@ class ImageSearchServer:
         The worker pads each device batch to a power of two
         (``_pad_batch``) so repeat sizes hit the compile cache — but a
         bucket first seen under load stalls the single worker for a full
-        remote compile with every queued request behind it (measured:
-        one cold 64-row bucket at 64 concurrent clients turned p90 into
-        ~80 s). A production server compiles its shape buckets before
-        accepting load; with the persistent compile cache this is
-        seconds on any later start.
+        compile with every queued request behind it. A production server
+        compiles its shape buckets before accepting load; with the
+        persistent compile cache this is seconds on any later start.
         """
         knn = self.default_knn if knn is None else knn
         max_rows = self.max_batch_rows if max_rows is None else max_rows
